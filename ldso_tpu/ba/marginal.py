@@ -1,6 +1,6 @@
 """Marginalization: folding dying points and frames into the dense prior.
 
-TPU-native redesign of the reference's consistency-critical path
+JAX redesign of the reference's consistency-critical path
 (reference: n-lalanne/LDSO ``EnergyFunctional::marginalizePointsF`` and
 ``EnergyFunctional::marginalizeFrame``, SURVEY.md §3.4):
 

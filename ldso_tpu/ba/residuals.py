@@ -1,12 +1,12 @@
 """Photometric residual / Jacobian evaluation and Gauss-Newton assembly.
 
-TPU-native redesign of the reference's optimization hot path
+JAX redesign of the reference's optimization hot path
 (reference: n-lalanne/LDSO ``PointFrameResidual::linearize`` in
 src/internal/Residuals.cc, the SSE accumulators in
 ``MatrixAccumulators.h``, and ``AccumulatedTop/SCHessian``): instead of
 per-residual C++ loops feeding hierarchical SIMD accumulators, every
 (point, target) pair in the window is evaluated as one dense batch and
-the entire reduced camera system becomes a single MXU matmul
+the entire reduced camera system becomes a single dense matmul
 ``H = Jᵀ·Ω·J`` over ~100k residual rows, with the per-point Schur
 pieces as batched einsums (SURVEY.md §5.8).
 
@@ -187,7 +187,7 @@ def assemble(
     packed = jax.vmap(pack_corners)(win.images)                      # [F,H,W,12]
 
     # per-point pair quantities: one-hot matmuls instead of [host, f]
-    # row gathers (MXU beats the gather unit for these tiny tables)
+    # row gathers (tiny tables)
     R_cur_p = jnp.einsum("pg,gfij->pfij", oh_host, pre.R_cur, precision=_HI)
     t_cur_p = jnp.einsum("pg,gfi->pfi", oh_host, pre.t_cur, precision=_HI)
     R_fej_p = jnp.einsum("pg,gfij->pfij", oh_host, pre.R_fej, precision=_HI)
@@ -330,7 +330,8 @@ def assemble(
     A_hc = jnp.einsum("pab,pg->gab", m_hc, oh_host, precision=_HI)     # [F,8,4]
 
     eye_f = jnp.eye(F, dtype=r.dtype)
-    blocks = (jnp.einsum("fab,fg->fgab", A_tt + A_hh, eye_f)           # diagonal
+    blocks = (jnp.einsum("fab,fg->fgab", A_tt + A_hh, eye_f,
+                         precision=_HI)                            # diagonal
               + A_ht                                                   # (host g, target f)
               + jnp.transpose(A_ht, (1, 0, 3, 2)))                     # symmetric
     Hff = jnp.transpose(blocks, (0, 2, 1, 3)).reshape(8 * F, 8 * F)

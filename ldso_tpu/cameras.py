@@ -1,6 +1,6 @@
 """Camera models: pinhole projection + geometric undistortion.
 
-TPU-native redesign of the reference's ``src/frontend/Undistort.cc``
+JAX redesign of the reference's ``src/frontend/Undistort.cc``
 (reference: n-lalanne/LDSO): the factory parsed ``camera.txt`` and produced
 a per-model remap; here each model is a pure distortion function on
 normalized coordinates, the remap grid is precomputed once on host, and

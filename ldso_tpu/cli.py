@@ -145,7 +145,7 @@ def main(argv=None) -> int:
                    help="frames of deferred tracking readback (async mode)")
     r.add_argument("--batch", type=int, default=1,
                    help=">1 = track+trace B frames per device dispatch "
-                        "(round-trip-amortizing realtime mode)")
+                        "(dispatch-amortizing realtime mode)")
     r.add_argument("--playback-speed", type=float, default=0.0,
                    help=">0 enforces realtime pacing at this multiple of "
                         "sensor rate, dropping frames when behind "

@@ -1,25 +1,28 @@
-"""Device-mesh construction + multi-host runtime setup.
+"""Device-mesh construction + multi-process runtime setup.
 
 The reference is a single-process CPU system (SURVEY.md §5.8 — no
-NCCL/MPI/Gloo anywhere); this module is the TPU-native scaling runtime:
-``jax.distributed.initialize`` for the multi-host coordinator and a
-(dcn, ici) 2-D mesh so collectives reduce hierarchically — within a
-host slice over ICI, across hosts over DCN. The same code paths run on
-a single process with `--xla_force_host_platform_device_count=N`
-virtual devices, which is how CI exercises them.
+NCCL/MPI/Gloo anywhere). One process drives every card of a host on a
+flat 1-D mesh (``sharded_ba.make_mesh``, ``sharded_pgo.make_mesh``):
+the cards are joined all to all, so the mesh follows the algorithm
+alone. This module covers runs of several processes:
+``jax.distributed.initialize`` for the coordinator and a 2-D mesh whose
+rows are processes and whose columns are each process's local devices.
+The same code paths run in one process with
+`--xla_force_host_platform_device_count=N` virtual devices, which is
+how CI exercises them.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Optional, Tuple
+from typing import Optional
 
 import jax
 import numpy as np
 from jax.sharding import Mesh
 
-DCN_AXIS = "dcn"   # across hosts
-ICI_AXIS = "ici"   # within a host slice
+PROC_AXIS = "proc"     # across processes
+LOCAL_AXIS = "local"   # a process's own devices
 
 
 def init_distributed(coordinator_address: Optional[str] = None,
@@ -47,11 +50,11 @@ def init_distributed(coordinator_address: Optional[str] = None,
 
 def make_mesh_2d(n_hosts: Optional[int] = None,
                  devices=None) -> Mesh:
-    """(dcn, ici) mesh over all devices: rows = host groups (DCN),
-    columns = chips within a host (ICI).
+    """(proc, local) mesh over all devices: rows = processes, columns =
+    each process's local devices.
 
-    On real hardware ``n_hosts = jax.process_count()`` and each row is
-    one host's local chips; on a virtual single-process mesh any
+    In a multi-process run ``n_hosts = jax.process_count()`` and each
+    row is one process's devices; on a virtual single-process mesh any
     divisor of the device count works (CI uses 2×4 over 8 CPU
     devices)."""
     devs = list(devices if devices is not None else jax.devices())
@@ -61,10 +64,5 @@ def make_mesh_2d(n_hosts: Optional[int] = None,
     if n % n_hosts != 0:
         raise ValueError(f"{n} devices not divisible by {n_hosts} hosts")
     grid = np.asarray(devs).reshape(n_hosts, n // n_hosts)
-    return Mesh(grid, (DCN_AXIS, ICI_AXIS))
+    return Mesh(grid, (PROC_AXIS, LOCAL_AXIS))
 
-
-def point_axes(mesh: Mesh) -> Tuple[str, ...]:
-    """The mesh axes the landmark/residual banks shard over: every axis
-    of the mesh (1-D "points" mesh, or dcn×ici combined)."""
-    return tuple(mesh.axis_names)

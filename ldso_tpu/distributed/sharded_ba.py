@@ -1,16 +1,16 @@
 """Distributed sliding-window BA: point-sharded Schur assembly.
 
 The reference is a single-process CPU system (SURVEY.md §2.3/§5.8 — no
-NCCL/MPI anywhere); this module is the new, TPU-native scaling axis:
+NCCL/MPI anywhere); this module is a new scaling axis:
 the landmark/residual set is sharded across the device mesh
 (`PartitionSpec` on the point axis), each device linearizes its
 residual shard and Schur-eliminates its own points LOCALLY (point
 elimination is per-point-local, so it needs no communication), and the
 only collective per Gauss-Newton iteration is one `psum` of the tiny
-(8F+4)² reduced camera system over ICI. The dense solve is replicated
+(8F+4)² reduced camera system. The dense solve is replicated
 (≤68×68); idepth backsubstitution is per-shard local.
 
-Works identically on a real TPU mesh and on the CPU fake mesh
+Works identically on a mesh of GPUs and on the CPU fake mesh
 (`--xla_force_host_platform_device_count`), which is how it is tested.
 """
 
@@ -36,7 +36,7 @@ AXIS = "points"   # 1-D mesh axis name the landmark bank is sharded over
 
 def window_pspecs(win: Window, axes=AXIS) -> Window:
     """PartitionSpec pytree for a Window: point-indexed arrays sharded on
-    the given mesh axis (or axis tuple — e.g. ("dcn", "ici") to spread
+    the given mesh axis (or axis tuple — e.g. ("proc", "local") to spread
     points over hosts × chips), frame/camera state replicated."""
     pa = P(axes)
     return Window(
@@ -56,7 +56,7 @@ def _local_gn_step(win: Window, HM, bM, prior_d, scale_vec, fixed, lam,
     sys = assemble(win, huber_th=huber_th, outlier_sum=outlier_sum)
 
     delta = state_delta(win)
-    # local camera-system contribution, then the single ICI collective
+    # local camera-system contribution, then the single collective
     Hdd_damped = (sys.H_dd * (1.0 + lam)) + 1e-10
     active = win.p_valid & (sys.H_dd > 1e-10)
     inv_dd = jnp.where(active, 1.0 / Hdd_damped, 0.0)
@@ -68,8 +68,7 @@ def _local_gn_step(win: Window, HM, bM, prior_d, scale_vec, fixed, lam,
     # undamped total diagonal BEFORE the Schur subtraction), so the
     # payload carries the combined M = Σ(H − H_sc) plus diag(ΣH) — the
     # Schur diagonal is then dH − diag(M) — instead of both full
-    # matrices (the round-4 [2,D,D] stack: 2× the bytes, caught by the
-    # round-5 HLO cross-check, scripts/project_scaling.py).
+    # matrices (a [2,D,D] stack would move 2× the bytes).
     D = sys.H.shape[0]
     payload = jnp.concatenate([
         (sys.H - H_sc).ravel(),
@@ -150,9 +149,6 @@ def make_distributed_ba_step(mesh: Mesh, cfg: LdsoConfig,
                     jnp.asarray(bM, jnp.float32), prior_d,
                     jnp.float32(lam))
 
-    # the inner jitted step, exposed so tooling can .lower() it and read
-    # the compiled collectives (scripts/project_scaling.py HLO crosscheck)
-    full.jitted = step
     return full
 
 

@@ -2,20 +2,20 @@
 
 The reference optimizes the global pose graph single-threaded inside one
 process (reference: n-lalanne/LDSO src/Map.cc::OptimizeALLKFs, g2o
-SparseOptimizer on one CPU core); this module is the TPU-native scaling
+SparseOptimizer on one CPU core); this module is the scaling
 axis named in SURVEY.md §5.7/§5.8: the **edge list is sharded by
 keyframe block** across the device mesh (edges sorted by their owning
 vertex block → contiguous trajectory chunks per device, loop edges as
 the cross-block halo), each device linearizes its edge shard locally
 (the dominant cost — batched Sim3 Jacobians), and vertex-sized [K, 7]
-vectors are reduced with `psum` over ICI. The conjugate-gradient matvec
+vectors are reduced with `psum`. The conjugate-gradient matvec
 is per-shard gather/scatter over local edges + one psum — the Hessian
 [7K, 7K] is never materialized, and no device ever holds more than its
 own edge shard.
 
 Cost model: per LM iteration 1 psum of [K,7,7]+[K,7] (the block-Jacobi
 preconditioner + gradient) and `cg_iters` psums of [K,7] — all tiny
-(K=4096 → 112 KB) latency-bound ICI collectives, while the O(E) edge
+(K=4096 → 112 KB) latency-bound collectives, while the O(E) edge
 work parallelizes linearly. Identical semantics to
 `ldso_tpu.loop.posegraph.optimize_pose_graph` (tested against it on the
 virtual CPU mesh).
@@ -90,7 +90,8 @@ def _pgo_shard(S_init, ei, ej, S_meas, w_edge, fixed, lam0,
 
         def precond(x):
             return jnp.where(free[:, None],
-                             jnp.einsum("kab,kb->ka", diag_inv, x), 0.0)
+                             jnp.einsum("kab,kb->ka", diag_inv, x,
+                                        precision=_HI), 0.0)
 
         x0 = jnp.zeros((K, 7), S.dtype)
         r0 = -b - matvec(x0)
@@ -199,8 +200,8 @@ def make_mesh(n_devices: int | None = None) -> Mesh:
 # n·H·16 pose-halo gather and one n·H·56 diag/gradient exchange. H is
 # the cross-block degree — for a SLAM trajectory H ≪ B, so per-device
 # traffic is proportional to the loop structure, not the map size.
-# (The exchanges use all_gather/all_to_all on the halo buffers — XLA
-# lowers both to ICI ring ppermutes; payload ∝ halo either way.)
+# (The exchanges use all_gather/all_to_all on the halo buffers;
+# payload ∝ halo either way.)
 
 
 def partition_pose_graph(K: int, ei, ej, S_meas, w_edge, n_blocks: int):
@@ -328,7 +329,8 @@ def _block_pgo_shard(S_blk, fixed_blk, ei, ej, S_meas, w_edge,
 
         def precond(x):
             return jnp.where(free[:, None],
-                             jnp.einsum("kab,kb->ka", diag_inv, x), 0.0)
+                             jnp.einsum("kab,kb->ka", diag_inv, x,
+                                        precision=_HI), 0.0)
 
         def pdot(a, b_):
             return jax.lax.psum(jnp.sum(a * b_), AXIS)

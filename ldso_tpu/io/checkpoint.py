@@ -1,7 +1,7 @@
 """Checkpoint / resume of the full engine state.
 
 The reference has NO checkpointing (SURVEY.md §5.4 — run-to-completion,
-only the final trajectory export); this is a new capability the TPU
+only the final trajectory export); this is a new capability this
 framework adds: because the entire engine state is explicit data — the
 Window pytree, the dense marginalization prior HM/bM, the immature
 bank, host records (keyframes, frames, pose edges) — a checkpoint is a

@@ -1,6 +1,6 @@
 """Dataset readers: TUM-Mono, KITTI odometry, EuRoC MAV.
 
-TPU-native equivalent of the reference's per-example reader classes
+JAX equivalent of the reference's per-example reader classes
 (reference: n-lalanne/LDSO examples/run_dso_tum_mono.cc's
 ImageFolderReader with libzip, run_dso_kitti.cc, run_dso_euroc.cc):
 each reader yields undistorted, photometrically corrected float images
@@ -108,16 +108,14 @@ def decode_image(data: bytes, name: str = "") -> np.ndarray:
     """Decode to grayscale f32 [H, W] in [0, 255].
 
     Prefers the native C++ decoder (ldso_tpu/native: libpng/libjpeg via
-    ctypes — the TPU-native analog of the reference's OpenCV imread),
-    then cv2/imageio, then the pure-numpy fallback."""
-    try:
-        from ldso_tpu import native
+    ctypes — the analog of the reference's OpenCV imread; None when it
+    cannot be built), then cv2/imageio when installed, then the
+    pure-numpy PNG/PGM decoders; anything else is a ValueError."""
+    from ldso_tpu import native
 
-        img = native.decode_gray(data)
-        if img is not None:
-            return img
-    except Exception:
-        pass
+    img = native.decode_gray(data)
+    if img is not None:
+        return img
     try:
         import cv2  # type: ignore
 

@@ -1,6 +1,6 @@
 """Photometric calibration: camera response inverse + vignette.
 
-TPU-native equivalent of the reference's ``PhotometricUndistorter``
+JAX equivalent of the reference's ``PhotometricUndistorter``
 (reference: n-lalanne/LDSO src/frontend/Undistort.cc:~L50-200): a
 256-entry inverse-response LUT ``G⁻¹`` (from ``pcalib.txt``) maps raw
 8-bit pixel values to irradiance, which is then divided by a vignette

@@ -1,6 +1,6 @@
 """Bilinear interpolation gathers over images and (I, dx, dy) stacks.
 
-TPU-native replacement for the reference's hot interpolation templates
+JAX replacement for the reference's hot interpolation templates
 ``getInterpolatedElement31 / getInterpolatedElement33``
 (reference: n-lalanne/LDSO include/internal/GlobalFuncs.h) — used in every
 photometric residual, the tracker, and the epipolar tracer.
@@ -64,7 +64,7 @@ def pack_corners(img):
     packed[v, u] = concat(img[v, u], img[v, u+1], img[v+1, u],
     img[v+1, u+1]) (border rows/cols replicate). Turns every bilinear
     sample from 4 random gathers into ONE — the gather is the
-    HBM-latency-bound part of the residual hot loop on TPU, so the 4x
+    memory-latency-bound part of the residual hot loop, so the 4x
     footprint memory is traded for a ~4x cut in gather count. Built once
     per frame (or per linearization), amortized over all samples.
     """

@@ -1,6 +1,6 @@
 """Image pyramid + gradient construction.
 
-TPU-native equivalent of ``FrameHessian::makeImages`` (reference:
+Equivalent of ``FrameHessian::makeImages`` (reference:
 n-lalanne/LDSO src/internal/FrameHessian.cc): per pyramid level an
 (I, dx, dy) stack and the squared gradient magnitude used by pixel
 selection. Levels are built by 2x2 averaging (as the reference does),
@@ -13,10 +13,8 @@ limit for this op).
 
 from __future__ import annotations
 
-import os
 from typing import List, Tuple
 
-import jax
 import jax.numpy as jnp
 
 
@@ -57,8 +55,14 @@ def _gradients(img):
     return dx, dy
 
 
-def build_pyramid_xla(img, levels: int):
-    """Pure-XLA pyramid build (the portable fallback path)."""
+def build_pyramid(img, levels: int):
+    """img [H, W] -> (pyramid, grad_sq):
+      pyramid: list of [H_l, W_l, 3] (I, dx, dy) stacks, finest first
+      grad_sq: list of [H_l, W_l] squared gradient magnitude (absSquaredGrad)
+
+    Plain jnp: the five-level build at 640x480 moves ~7.8 MB, and XLA
+    fuses it into the per-frame program that consumes it.
+    """
     pyr = []
     gsq = []
     cur = jnp.asarray(img).astype(jnp.float32)  # uint8 frames widen on-device
@@ -70,32 +74,3 @@ def build_pyramid_xla(img, levels: int):
             cur = _downsample2(cur)
     return pyr, gsq
 
-
-def build_pyramid(img, levels: int, use_pallas: bool | None = None):
-    """img [H, W] f32 -> (pyramid, grad_sq):
-      pyramid: list of [H_l, W_l, 3] (I, dx, dy) stacks, finest first
-      grad_sq: list of [H_l, W_l] squared gradient magnitude (absSquaredGrad)
-
-    On TPU the fused Pallas stencil kernel is the default
-    (kernels/pallas_pyramid.py — one HBM read per input pixel, all four
-    per-level outputs in one pass): 0.047 ms vs 0.226 ms for the
-    fused-XLA build at 640x480 on v5e (scripts/bench_kernels.py
-    pyramid_pallas/pyramid_xla, round-3 roofline run — 20% vs 4% of the
-    HBM-IO roofline). ``LDSO_PALLAS_PYRAMID=0`` forces the portable XLA
-    path. Both are numerically equivalent
-    (tests/test_frontend.py pallas equivalence).
-    """
-    if use_pallas is None:
-        env = os.environ.get("LDSO_PALLAS_PYRAMID")
-        use_pallas = (jax.default_backend() == "tpu"
-                      and (env is None or env not in ("0", "off", "false")))
-    if use_pallas:
-        from ldso_tpu.kernels.pallas_pyramid import build_pyramid_pallas
-
-        return build_pyramid_pallas(img, levels, interpret=False)
-    return build_pyramid_xla(img, levels)
-
-
-def build_pyramid_jit(levels: int):
-    """Return a jitted pyramid builder for a fixed level count."""
-    return jax.jit(lambda img: build_pyramid(img, levels))

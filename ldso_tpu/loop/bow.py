@@ -1,13 +1,13 @@
 """Bag-of-binary-words vocabulary + keyframe database.
 
-TPU-native redesign of the reference's bundled DBoW3
+JAX redesign of the reference's bundled DBoW3
 (reference: n-lalanne/LDSO thirdparty/DBoW3 — k-ary vocabulary tree over
 ORB descriptors, tf-idf BowVectors, inverted-index Database with L1
 scoring; consumed by src/frontend/LoopClosing.cc): the tree is
 flattened to dense per-level descriptor tables so leaf assignment is a
 popcount-argmin cascade (matmul Hamming at every level, fully batched
 over features), and keyframe signatures are DENSE normalized tf-idf
-vectors over the leaves, so database scoring is one matvec on the MXU
+vectors over the leaves, so database scoring is one dense matvec
 instead of an inverted-index walk.
 
 The vocabulary is TRAINED here (hierarchical k-majority over binary

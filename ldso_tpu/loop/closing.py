@@ -1,6 +1,6 @@
 """Loop detection + correction orchestration.
 
-TPU-native redesign of the reference's ``LoopClosing`` thread
+JAX redesign of the reference's ``LoopClosing`` thread
 (reference: n-lalanne/LDSO src/frontend/LoopClosing.cc — per-KF BoW
 insert, DetectLoop's score gates + consistency window, geometric check
 via PnP-RANSAC + g2o Sim3 refine, then Map::OptimizeALLKFs in a

@@ -1,12 +1,12 @@
-"""Binary-descriptor matching as MXU matmuls.
+"""Binary-descriptor matching as dense matmuls.
 
-TPU-native redesign of the reference's ``FeatureMatcher``
+JAX redesign of the reference's ``FeatureMatcher``
 (reference: n-lalanne/LDSO src/frontend/FeatureMatcher.cc — brute-force
 Hamming with a ratio test, optionally bucketed by DBoW3 FeatureVector
 nodes): with bits unpacked to {0,1} vectors, the full N×M Hamming
 distance matrix is
     d(a, b) = Σa + Σb − 2·a·bᵀ
-— one matmul on the MXU instead of per-pair popcount loops. Mutual
+— one matmul instead of per-pair popcount loops. Mutual
 nearest + Lowe ratio gating are elementwise postprocessing.
 """
 

@@ -1,6 +1,6 @@
 """Corner detection + oriented binary descriptors (ORB-style).
 
-TPU-native redesign of the reference's LDSO additions
+JAX redesign of the reference's LDSO additions
 (reference: n-lalanne/LDSO src/frontend/FeatureDetector.cc — grid
 FAST/Shi-Tomasi corners + 256-bit oriented-BRIEF descriptors on
 keyframes, which feed corner-biased point selection, the DBoW loop

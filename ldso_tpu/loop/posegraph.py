@@ -1,6 +1,6 @@
 """Global Sim(3) pose-graph optimization.
 
-TPU-native redesign of the reference's global map backend
+JAX redesign of the reference's global map backend
 (reference: n-lalanne/LDSO src/Map.cc::OptimizeALLKFs +
 include/internal/PR.h VertexSim3/EdgeSim3, built on the bundled g2o
 SparseOptimizer/Levenberg): instead of a heap-allocated sparse graph
@@ -125,7 +125,8 @@ def optimize_pose_graph(
 
         def precond(x):
             return jnp.where(free[:, None],
-                             jnp.einsum("kab,kb->ka", diag_inv, x), 0.0)
+                             jnp.einsum("kab,kb->ka", diag_inv, x,
+                                        precision=_HI), 0.0)
 
         # preconditioned CG on the normal equations
         x0 = jnp.zeros((K, 7), S.dtype)

@@ -1,6 +1,6 @@
 """Sim(3) loop-constraint estimation: batched RANSAC + GN refinement.
 
-TPU-native redesign of the reference's loop-geometry pipeline
+JAX redesign of the reference's loop-geometry pipeline
 (reference: n-lalanne/LDSO src/frontend/LoopClosing.cc —
 cv::solvePnPRansac for an SE3 initialization followed by a g2o Sim3
 refinement with inverse-depth-weighted reprojection edges): because both
@@ -46,12 +46,14 @@ def umeyama_sim3(A, B, w=None):
     Bc = B - mu_b[..., None, :]
     cov = jnp.einsum("...ni,...n,...nj->...ij", Ac, wn, Bc, precision=_HI)
     U, D, Vt = jnp.linalg.svd(cov)
-    det = jnp.linalg.det(jnp.einsum("...ij,...jk->...ik", U, Vt))
+    det = jnp.linalg.det(jnp.einsum("...ij,...jk->...ik", U, Vt,
+                                    precision=_HI))
     S_fix = jnp.ones(A.shape[:-2] + (3,), A.dtype).at[..., 2].set(jnp.sign(det))
     R = jnp.einsum("...ij,...j,...jk->...ik", U, S_fix, Vt, precision=_HI)
     var_b = jnp.sum(wn * jnp.sum(Bc * Bc, axis=-1), axis=-1)
     s = jnp.sum(D * S_fix, axis=-1) / jnp.maximum(var_b, 1e-12)
-    t = mu_a - s[..., None] * jnp.einsum("...ij,...j->...i", R, mu_b)
+    t = mu_a - s[..., None] * jnp.einsum("...ij,...j->...i", R, mu_b,
+                                         precision=_HI)
     return lie.sim3(s, R, t)
 
 
@@ -62,7 +64,8 @@ def _project(X, intr):
 
 
 def _apply(S, X):
-    return jnp.einsum("...ij,...nj->...ni", S[..., :3, :3], X) \
+    return jnp.einsum("...ij,...nj->...ni", S[..., :3, :3], X,
+                      precision=_HI) \
         + S[..., None, :3, 3]
 
 
@@ -126,7 +129,7 @@ def _dlt_pose(X, uv, intr):
     row_u = jnp.concatenate([Xh, z4, -x[..., None] * Xh], axis=-1)  # [..., K, 12]
     row_v = jnp.concatenate([z4, Xh, -y[..., None] * Xh], axis=-1)
     A = jnp.concatenate([row_u, row_v], axis=-2)                    # [..., 2K, 12]
-    # nullspace via eigh of AᵀA (batched, TPU-friendly)
+    # nullspace via eigh of AᵀA (batched)
     AtA = jnp.einsum("...ki,...kj->...ij", A, A, precision=_HI)
     w, V = jnp.linalg.eigh(AtA)
     p = V[..., :, 0]                                                # [..., 12]
@@ -134,13 +137,15 @@ def _dlt_pose(X, uv, intr):
     M = P[..., :3]
     # sign: points must land in front (positive depth for the centroid)
     Xc = jnp.mean(X, axis=-2)
-    depth = jnp.einsum("...j,...j->...", M[..., 2, :], Xc) + P[..., 2, 3]
+    depth = jnp.einsum("...j,...j->...", M[..., 2, :], Xc,
+                       precision=_HI) + P[..., 2, 3]
     sgn = jnp.where(depth < 0, -1.0, 1.0)
     P = P * sgn[..., None, None]
     M = P[..., :3]
     # orthogonalize: M = s·R with R from SVD, s = mean singular value
     U, D, Vt = jnp.linalg.svd(M)
-    det = jnp.linalg.det(jnp.einsum("...ij,...jk->...ik", U, Vt))
+    det = jnp.linalg.det(jnp.einsum("...ij,...jk->...ik", U, Vt,
+                                    precision=_HI))
     fix = jnp.ones(M.shape[:-2] + (3,), M.dtype).at[..., 2].set(jnp.sign(det))
     R = jnp.einsum("...ij,...j,...jk->...ik", U, fix, Vt, precision=_HI)
     s = jnp.mean(D * fix, axis=-1)

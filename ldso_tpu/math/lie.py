@@ -1,6 +1,6 @@
 """Batched Lie-group operations: SO(3), SE(3), Sim(3).
 
-TPU-native replacement for the reference's Sophus dependency
+JAX replacement for the reference's Sophus dependency
 (reference: n-lalanne/LDSO include/NumTypes.h — ``SE3 = Sophus::SE3d``,
 ``Sim3 = Sophus::Sim3d``). Everything here is pure ``jnp``, shape-batched
 (leading dims broadcast), differentiable, and dtype-polymorphic (f32 on
@@ -25,8 +25,8 @@ import jax.numpy as jnp
 
 _EPS = 1e-8
 
-# Small (3x3 / 4x4) matrix algebra must not lose precision to the MXU's
-# reduced-precision f32 passes on TPU — pin HIGHEST for everything here.
+# Small (3x3 / 4x4) matrix algebra must not lose precision to
+# reduced-precision f32 products (TF32 on a GPU) — pin HIGHEST here.
 _mm = functools.partial(jnp.matmul, precision=jax.lax.Precision.HIGHEST)
 _einsum = functools.partial(jnp.einsum, precision=jax.lax.Precision.HIGHEST)
 

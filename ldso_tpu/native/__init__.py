@@ -1,6 +1,6 @@
 """ctypes bindings for the native image decode + prefetch pipeline.
 
-The compute path of this framework is JAX/XLA/Pallas on the TPU; the
+The compute path of this framework is JAX/XLA on the device; the
 host-side runtime around it — like the reference's OpenCV/libzip frame
 IO (reference: n-lalanne/LDSO src/frontend/ImageRW_OpenCV.cc,
 examples/run_dso_*.cc ImageFolderReader) — is native C++

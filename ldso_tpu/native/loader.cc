@@ -1,6 +1,6 @@
 // Native image decode + threaded prefetch pipeline.
 //
-// TPU-native equivalent of the reference's host-side IO layer
+// JAX equivalent of the reference's host-side IO layer
 // (reference: n-lalanne/LDSO src/frontend/ImageRW_OpenCV.cc and the
 // per-example ImageFolderReader in examples/run_dso_*.cc, which decode
 // frames synchronously on the feed thread with OpenCV/libzip): here a

@@ -1,6 +1,6 @@
 """Candidate pixel selection by adaptive gradient thresholds.
 
-TPU-native redesign of the reference's ``PixelSelector2``
+JAX redesign of the reference's ``PixelSelector2``
 (reference: n-lalanne/LDSO src/frontend/PixelSelector2.cc): per-block
 gradient-magnitude quantile thresholds (``makeHists``: 32x32 blocks,
 median + ``setting_minGradHistAdd``), then per-cell maximum selection at
@@ -40,15 +40,26 @@ def _block_quantile_threshold(gsq, block: int, cut: float, add: float):
     return th_full.at[: bh * block, : bw * block].set(th_pix)
 
 
-def _hash_dirs(h: int, w: int, cell: int, seed: int):
-    """Deterministic per-cell unit direction (replaces the reference's
-    randomPattern dither)."""
-    ch, cw = h // cell + 1, w // cell + 1
-    iy = np.arange(ch)[:, None]
-    ix = np.arange(cw)[None, :]
-    a = (iy * 73856093 ^ ix * 19349663 ^ (seed * 83492791)) & 0xFFFF
-    ang = a.astype(np.float64) / 65536.0 * 2 * np.pi
+@functools.lru_cache(maxsize=1)
+def _dir_table() -> np.ndarray:
+    """[65536, 2] unit direction of every 16-bit hash, rounded to float32
+    once from float64."""
+    ang = np.arange(65536, dtype=np.float64) / 65536.0 * 2 * np.pi
     return np.stack([np.cos(ang), np.sin(ang)], axis=-1).astype(np.float32)
+
+
+def _hash_dirs(h: int, w: int, cell: int, seed):
+    """Deterministic per-cell unit direction (replaces the reference's
+    randomPattern dither). ``seed`` may be traced: the low 16 bits of the
+    hash split into a static per-cell part and the seed's part, so one
+    compiled program serves every seed."""
+    ch, cw = h // cell + 1, w // cell + 1
+    iy = np.arange(ch, dtype=np.int64)[:, None]
+    ix = np.arange(cw, dtype=np.int64)[None, :]
+    cell_hash = ((iy * 73856093 ^ ix * 19349663) & 0xFFFF).astype(np.uint32)
+    seed_hash = (jnp.asarray(seed).astype(jnp.uint32)
+                 * jnp.uint32(83492791)) & jnp.uint32(0xFFFF)
+    return jnp.asarray(_dir_table())[jnp.asarray(cell_hash) ^ seed_hash]
 
 
 def _cell_argmax(score, cell: int):
@@ -65,7 +76,7 @@ def _cell_argmax(score, cell: int):
     return out.at[: ch * cell, : cw * cell].set(m)
 
 
-@functools.partial(jax.jit, static_argnames=("num_want", "block", "pot", "seed"))
+@functools.partial(jax.jit, static_argnames=("num_want", "block", "pot"))
 def select_pixels(
     pyr0,                    # [H, W, 3] level-0 (I, dx, dy)
     gsq1,                    # [H/2, W/2] level-1 squared gradients
@@ -90,7 +101,7 @@ def select_pixels(
     gsq0 = jnp.sum(g * g, axis=-1)
     th0 = _block_quantile_threshold(gsq0, block, min_cut, min_add) ** 2
 
-    dirs = jnp.asarray(_hash_dirs(h, w, pot, seed))
+    dirs = _hash_dirs(h, w, pot, seed)
     iy = jnp.arange(h) // pot
     ix = jnp.arange(w) // pot
     d = dirs[iy[:, None], ix[None, :]]                             # [H, W, 2]

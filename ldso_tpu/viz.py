@@ -2,7 +2,7 @@
 Pangolin viewer, reference: n-lalanne/LDSO src/frontend/DSOViewer.cc —
 trajectory + colored point cloud + per-KF depth overlays).
 
-TPU pods have no display (SURVEY.md §2.1 row 31), so instead of a live
+Accelerator hosts have no display (SURVEY.md §2.1 row 31), so instead of a live
 GL window this writes artifacts to a directory:
   * ``trajectory.png``  — top-down + side view of the camera path
     (matplotlib when available, pure-PPM fallback otherwise)

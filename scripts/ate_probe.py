@@ -1,6 +1,6 @@
 """ATE probe: run the test_system 30-frame synthetic sequence with
 optional behavior toggles (env vars) and print the ATE%% — the bisect
-harness for drift regressions (VERDICT r2 'fix the ATE regression').
+harness for drift regressions.
 
 Usage: JAX_PLATFORMS=cpu python scripts/ate_probe.py
 Toggles (env): LDSO_NO_DECIMATE=1  LDSO_NO_EARLYBREAK=1  LDSO_FIXED_MAD=1

@@ -1,4 +1,4 @@
-"""Targeted latency profile of the tracking/tracing chain on real TPU.
+"""Targeted latency profile of the tracking/tracing chain on the device.
 
 Measures, at production shapes with REALISTIC (synthetic-scene) imagery
 and small inter-frame motion:

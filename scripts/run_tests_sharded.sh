@@ -1,5 +1,5 @@
 #!/usr/bin/env bash
-# Per-file sharded test runner (VERDICT r4 weak #6): one pytest process
+# Per-file sharded test runner: one pytest process
 # per test file, so a single XLA:CPU compile-cache/memory blowup (the
 # round-4 full-suite run SEGFAULTED inside backend_compile_and_load
 # after ~40 min in ONE process; every file passes in isolation) cannot

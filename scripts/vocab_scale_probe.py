@@ -1,4 +1,4 @@
-"""Vocabulary-scale measurement (VERDICT r4 #8): does the 10^5-leaf top
+"""Vocabulary-scale measurement: does the 10^5-leaf top
 rung of the online ladder suffice at KITTI-00 keyframe/descriptor
 counts, or is the reference's 10^6-leaf DBoW3 tree needed?
 
@@ -17,7 +17,7 @@ question is measured, not assumed:
      the L1 scan is one matvec, but memory scales with leaves x KFs);
   3. the 10^6 rung's PROJECTED costs from the same measurements.
 
-Writes benchmarks/VOCAB_SCALE.json. CPU-runnable:
+Writes out/VOCAB_SCALE.json (out/ is git-ignored). CPU-runnable:
   JAX_PLATFORMS=cpu python scripts/vocab_scale_probe.py [n_kf]
 """
 
@@ -165,8 +165,10 @@ def main(n_kf: int = 1300):
            if hit5 - hit4 < 0.02 else
            "still improves at 10^5; a sparse-signature 10^6 rung is "
            "worth implementing."))
-    path = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), "benchmarks", "VOCAB_SCALE.json")
+    out_dir = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "out")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "VOCAB_SCALE.json")
     with open(path, "w") as f:
         json.dump(out, f, indent=1)
     print(out["conclusion"])

@@ -1,4 +1,4 @@
-"""Adversarial synthetic scenarios (VERDICT r3 #9): the stand-in for
+"""Adversarial synthetic scenarios: the stand-in for
 the real TUM/KITTI runs that this environment cannot perform (no
 datasets, no network). Each scenario models a known reference failure
 mode — abrupt exposure steps, gradient-starved low-texture spans, and

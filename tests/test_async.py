@@ -5,7 +5,7 @@ The reference overlaps a tracking thread with a mapping thread
 queue depth ≤3, non-KF frames dropped under backlog, KFs never dropped)
 and runs loop closing + pose-graph optimization on background threads
 (src/frontend/LoopClosing.cc, src/Map.cc). These tests pin the same
-semantics onto the TPU-native pipeline: equivalence with the
+semantics onto the JAX pipeline: equivalence with the
 synchronous path when the queue never overflows, the backlog drop rule,
 and non-KF tracking latency being independent of loop-closure work.
 """
@@ -70,7 +70,7 @@ class TestAsyncMapping:
 
     def test_batched_dispatch_stays_on_track(self):
         """Frame-batched mode (fused_batch: B frames tracked+traced per
-        device dispatch — the round-trip-amortizing realtime mode): the
+        device dispatch — the dispatch-amortizing realtime mode): the
         sequence still initializes, produces keyframes through the
         bank-patch path, and tracks to the end with bounded drift."""
         from ldso_tpu.eval.ate import ate_rmse
@@ -146,7 +146,7 @@ def _ate_pct(system, ds):
 
 @pytest.mark.slow
 class TestHeadlineModeAccuracy:
-    """Accuracy evidence for the PERF-HEADLINE modes (VERDICT r3 #2):
+    """Accuracy evidence for the PERF-HEADLINE modes:
     the pipelined and frame-batched pipelines must hold trajectory
     quality close to the synchronous path, not merely stay un-lost.
     Pipelined runs take different keyframes than sync runs (decisions
@@ -224,7 +224,7 @@ class TestHeadlineModeAccuracy:
         (measured in-process) instead of unbounded free-run: on a
         2-CPU CI box an unpaced drive's shedding is pure scheduler
         luck — this test flaked between 8% and 25% ATE on IDENTICAL
-        code — while the TPU bench reports the real free-run number."""
+        code — while the bench on the card reports the free-run number."""
         ds = SyntheticDataset(w=320, h=240, n=120, traj_kind="out_and_back",
                               seed=0)
         sync_pct, sync_m = self._drive(ds)

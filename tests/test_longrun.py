@@ -163,10 +163,7 @@ class TestMultiLoopAtScale:
         assert lc.vocab.k ** lc.vocab.levels >= 1000, \
             f"vocab stayed at {lc.vocab.k}^{lc.vocab.levels}"
 
-        # RECALL through the full REAL chain (VERDICT r4 #5: no
-        # StubGeometryLoop anywhere in this test — every accept above
-        # went through ORB -> BoW -> covisible floor -> consistency ->
-        # PnP-RANSAC -> Sim3 refine): an eligible revisit KF is one
+        # RECALL through the full REAL chain: an eligible revisit KF is one
         # whose GT position lies near some much-older KF's; it counts
         # as recalled when an accepted closure lands within its +-3-KF
         # neighborhood (acceptance resets the consistency chains, so

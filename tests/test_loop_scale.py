@@ -1,4 +1,4 @@
-"""Reference-scale loop-detection tests (VERDICT r3 #5c).
+"""Reference-scale loop-detection tests.
 
 The reference's DetectLoop machinery runs over hundreds of keyframes on
 KITTI-00 with a 10⁶-leaf vocabulary and survives perceptual aliasing
@@ -181,8 +181,8 @@ class TestCorridorScale:
 
     def test_multiple_groups_tracked(self, corridor_run):
         """The multi-group consistency state must be able to hold >1
-        concurrent group (ADVICE r3: single-group tracking reset chains
-        when two true-loop regions alternated)."""
+        concurrent group (single-group tracking reset chains when two
+        true-loop regions alternated)."""
         lc, _, _ = corridor_run
         # after a full corridor the bookkeeping saw multiple candidates
         # per keyframe; the structure is a list (N groups), not a single
@@ -206,7 +206,7 @@ class TestRetrainNonBlocking:
         """Trigger a ladder retrain mid-sequence and keep detecting:
         per-KF latency while the retrain runs must stay < 200 ms, the
         old tree keeps serving queries, and the swap lands eventually
-        (VERDICT r3 #5a)."""
+       ."""
         cfg = preset("default")
         places = list(range(60)) + list(range(59, -1, -1))
         place_of = {k: p for k, p in enumerate(places)}

@@ -6,10 +6,9 @@ Spawns TWO separate Python processes on this machine, each with 2
 virtual CPU devices; process 0 hosts the coordinator. Both must
 complete ``jax.distributed.initialize`` through
 ``ldso_tpu.distributed.mesh.init_distributed`` (env-var driven, exactly
-as a pod launcher would), see a 4-device global (dcn=2, ici=2) mesh,
+as a pod launcher would), see a 4-device global (proc=2, local=2) mesh,
 and agree on a cross-process allgather. This is the same code path a
-real multi-host TPU slice takes; only the transport differs
-(SURVEY.md §5.8).
+multi-host run takes; only the transport differs (SURVEY.md §5.8).
 """
 
 import os
@@ -41,7 +40,7 @@ assert sorted(got.reshape(-1).tolist()) == [10, 20], got
 
 m = mesh_mod.make_mesh_2d()
 assert m.devices.shape == (2, 2), m.devices.shape
-assert m.axis_names == (mesh_mod.DCN_AXIS, mesh_mod.ICI_AXIS)
+assert m.axis_names == (mesh_mod.PROC_AXIS, mesh_mod.LOCAL_AXIS)
 # success sentinel: a FILE, not stdout — child stdout interleaves with
 # the Gloo shutdown banner and substring asserts on it are flaky
 with open(os.environ["LDSO_SENTINEL"], "w") as f:
